@@ -8,20 +8,23 @@ Run from the repository root on a machine with a CUDA card:
 1. device: requires CUDA and prints the card's name and power limit;
 2. build:  compiles every kernel of the decide path from ``escalator_tpu_torch/ops/csrc``
    into ``build/kernels/``;
-3. kernel: the segment-sum kernel against its plain version on the card,
-   bit-equal, on edge-case layouts;
+3. kernel: both entry points of the segment-sum kernel against their plain
+   versions on the card, bit-equal: the generic sum on edge-case layouts, and
+   the decide's fused sweeps (``segsum.decide_sweeps``) on edge-case pod and
+   node layouts, ragged lane counts and inputs that start off a 16-byte
+   boundary; a valid lane's id out of range raises;
 4. main path: ``make_backend("torch").decide`` at 100k pods, 50k nodes and 2048
    nodegroups (objects made from ``--seed``) over three ticks — healthy
    (light program), tainted nodes (ordered program), scale-down (light, then
    ordered). Every decide field and every ``GroupDecision`` must be bit-equal
    to the same ticks on ``device="cpu"`` (the plain versions), and every
-   decide must have launched the kernel;
-5. timings: pack / to_device / decide / unpack medians per tick; for each
-   kernel call site, the device time of one call of the kernel, its plain
-   version and the one PyTorch call that computes the same sums
-   (``index_add_``), from a CUDA graph of back-to-back calls, beside the
-   kernel's bound; and the host's launch rate of each, and of the wrapper,
-   from CUDA events around back-to-back calls;
+   decide must have launched the kernel exactly once;
+5. timings: pack / to_device / decide / unpack medians per tick; the device
+   time of one call of the decide's fused launch and, per call site, of the
+   generic entry, each beside its plain version, the PyTorch calls that
+   compute the same sums (``index_add_``) and the kernel's bound, from a CUDA
+   graph of back-to-back calls; and the host's launch rate of each, and of
+   the wrapper, from CUDA events around back-to-back calls;
 6. profiles (torch.profiler): the device time of each tick's decide, and the
    kernel's own device time per launch;
 7. the ``kernels`` line, the card line, and last the result line.
@@ -194,6 +197,128 @@ def check_kernel_vs_plain(segsum, ids, valid, ints, counts, G) -> int:
     return err
 
 
+def sweep_arrays(rng, P, N, G, *, pod_live=0.9, node_live=0.9, contiguous=True):
+    """``(pods, nodes)`` numpy dicts under the PodArrays / NodeArrays field
+    names that the decide's sweeps read. Node lanes group-contiguous (or
+    interleaved), 10% tainted, 5% cordoned; a pod sits on a random node lane
+    (-1 for none, 1 in N+1) and mostly takes that node's group, 5% another."""
+    n_group = (_sorted_ids(rng, N, G) if contiguous else rng.integers(0, G, N).astype(np.int32))
+    nodes = dict(valid=rng.random(N) < node_live, group=n_group,
+                 tainted=rng.random(N) < 0.1, cordoned=rng.random(N) < 0.05,
+                 cpu_milli=rng.integers(0, 2**40, N), mem_bytes=rng.integers(0, 2**47, N))
+    node = rng.integers(-1, N, P).astype(np.int32)
+    if contiguous:
+        node.sort()
+    group = n_group[np.clip(node, 0, N - 1)]
+    other = rng.random(P) < 0.05
+    group[other] = rng.integers(0, G, int(other.sum()))
+    pods = dict(valid=rng.random(P) < pod_live, group=group, node=node,
+                cpu_milli=rng.integers(0, 2**40, P), mem_bytes=rng.integers(0, 2**47, P))
+    return pods, nodes
+
+
+def decide_layouts(rng, P=131_072, N=65_536, G=GROUPS, lane_counts=(1, 3, 33, 4097, 1_000_003)):
+    """(name, pods, nodes, G) for the decide's fused sweeps, in numpy: edge
+    cases at ``P`` pod lanes, ``N`` node lanes and ``G`` groups (by default
+    the main path's), then ``P = N`` at each of ``lane_counts``. Every valid
+    id is in range; :func:`decide_bad_layouts` holds the ones that are not."""
+    def arrays(**kw):
+        return sweep_arrays(rng, P, N, G, **kw)
+
+    yield ("contiguous", *arrays(), G)
+    yield ("interleaved", *arrays(contiguous=False), G)
+    pods, nodes = arrays()
+    pods["node"][rng.random(P) < 0.5] = -1
+    yield ("pods_off_node", pods, nodes, G)
+    pods, nodes = arrays()
+    moved = rng.random(P) < 0.5
+    pods["group"][moved] = (pods["group"][moved] + 1) % G
+    yield ("pods_on_other_group_nodes", pods, nodes, G)
+    yield ("pods_on_invalid_node_lanes", *arrays(node_live=0.5), G)
+    pods, nodes = arrays(pod_live=0.7, node_live=0.7)
+    for arr, fields in ((pods, ("group", "node")), (nodes, ("group",))):
+        dead = ~arr["valid"]
+        for f in fields:
+            arr[f][dead] = rng.integers(-(2**31), 2**31, int(dead.sum()))
+    yield ("padding_garbage_ids", pods, nodes, G)
+    for name, lo, hi in (("values_ge_2^48", 2**48, 2**62), ("negative_values", -(2**62), 2**62)):
+        pods, nodes = arrays()
+        for arr in (pods, nodes):
+            for f in ("cpu_milli", "mem_bytes"):
+                arr[f] = rng.integers(lo, hi, len(arr[f]))
+        yield (name, pods, nodes, G)
+    for name, tainted, cordoned in (("all_tainted", True, False), ("all_cordoned", False, True),
+                                    ("tainted_and_cordoned", True, True)):
+        pods, nodes = arrays()
+        nodes["tainted"][:] = tainted
+        nodes["cordoned"][:] = cordoned
+        yield (name, pods, nodes, G)
+    yield ("zero_valid", *arrays(pod_live=0.0, node_live=0.0), G)
+    yield ("one_group_one_node", *sweep_arrays(rng, P, 1, 1), 1)
+    pods, nodes = arrays()
+    beyond = pods["valid"] & (rng.random(P) < 0.1)
+    pods["node"][beyond] = N + rng.integers(0, 1000, int(beyond.sum()))
+    pods["group"][beyond] = (nodes["group"][N - 1] + 1) % G  # not the clamped node's group
+    yield ("uncounted_pods_on_node_ge_N", pods, nodes, G)
+    for lanes in lane_counts:
+        yield (f"lanes_{lanes}", *sweep_arrays(rng, lanes, lanes, min(G, lanes)), min(G, lanes))
+
+
+def decide_bad_layouts(rng, P=4096, N=2048, G=64):
+    """(name, pods, nodes, G) on which :func:`segsum.decide_sweeps` must
+    raise: a valid pod or node with group >= G, or a counted pod (valid, of
+    its clamped node's group) on a node >= N."""
+    pods, nodes = sweep_arrays(rng, P, N, G)
+    pods["valid"][7] = True
+    pods["group"][7] = G
+    yield ("pod_group_ge_G", pods, nodes, G)
+    pods, nodes = sweep_arrays(rng, P, N, G)
+    nodes["valid"][5] = True
+    nodes["group"][5] = G
+    yield ("node_group_ge_G", pods, nodes, G)
+    pods, nodes = sweep_arrays(rng, P, N, G)
+    pods["valid"][9], pods["node"][9], pods["group"][9] = True, N + 3, nodes["group"][N - 1]
+    yield ("counted_pod_on_node_ge_N", pods, nodes, G)
+
+
+def sweep_tensors(pods, nodes, device, offset=0):
+    """The numpy layout as the port's PodArrays / NodeArrays on ``device``.
+    With ``offset``, each tensor is a slice that starts ``offset`` elements
+    into a larger one, so its storage is off the allocator's alignment."""
+    from escalator_tpu_torch.core.arrays import NodeArrays, PodArrays
+
+    def t(a):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        if not offset:
+            return a.to(device)
+        big = torch.zeros(a.numel() + offset, dtype=a.dtype, device=device)
+        big[offset:] = a.to(device)
+        return big[offset:]
+
+    def section(cls, arrays):  # fields the layout leaves out stay None
+        return cls(**{f.name: t(arrays[f.name]) if f.name in arrays else None
+                      for f in dataclasses.fields(cls)})
+
+    return section(PodArrays, pods), section(NodeArrays, nodes)
+
+
+def check_decide_vs_plain(segsum, p, n, G) -> int:
+    """decide_sweeps through its wrapper vs decide_sweeps_plain, same tensors
+    on the card; returns the max abs difference (raises unless 0)."""
+    N = n.valid.numel()
+    got = segsum.decide_sweeps(p, n, G, N)
+    want = segsum.decide_sweeps_plain(p, n, G, N)
+    torch.cuda.synchronize()
+    if list(got) != list(want):
+        raise AssertionError(f"decide_sweeps gives {list(got)}, plain {list(want)}")
+    err = 0
+    for name, w in want.items():
+        err = max(err, int((got[name] - w).abs().max()) if w.numel() else 0)
+        if not torch.equal(got[name], w):
+            raise AssertionError(f"decide kernel != plain on {name}: max abs err {err}")
+    return err
+
+
 # ---------------------------------------------------------------- world
 
 
@@ -278,7 +403,27 @@ def sweep_bound(ids, valid, ints, counts, G):
     nbytes = (valid.numel() * valid.element_size()
               + live * (ids.element_size() + sum(t.element_size() for t in columns.values()))
               + G * n_cols * 8)
-    ops = live * n_cols
+    return _bound(nbytes, live * n_cols)
+
+
+def decide_bound(p, n, G):
+    """(bound_ms, bound_by, bytes) of the decide's fused launch on these
+    inputs: each lane's valid flag; a valid pod's group, node, cpu and mem; a
+    valid node's group, tainted and cordoned flags, cpu and mem (a pod's
+    gather of its node's group reads nothing new); the [9, G] and [N] int64
+    sums written once; one add per valid lane and sum (4 per pod, 6 per
+    node)."""
+    live_p, live_n = int(p.valid.sum()), int(n.valid.sum())
+    pod_bytes = sum(getattr(p, f).element_size() for f in ("group", "node", "cpu_milli", "mem_bytes"))
+    node_bytes = sum(getattr(n, f).element_size()
+                     for f in ("group", "tainted", "cordoned", "cpu_milli", "mem_bytes"))
+    N = n.valid.numel()
+    nbytes = (p.valid.numel() * p.valid.element_size() + live_p * pod_bytes
+              + N * n.valid.element_size() + live_n * node_bytes + (9 * G + N) * 8)
+    return _bound(nbytes, 4 * live_p + 6 * live_n)
+
+
+def _bound(nbytes, ops):
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_SCALAR_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
@@ -304,6 +449,25 @@ def raw_launcher(segsum, ids, valid, ints, counts, G):
     return launch
 
 
+def decide_launcher(segsum, p, n, G):
+    """One launch of the decide's fused sweeps through its C entry, with the
+    arguments built once (see :func:`raw_launcher`)."""
+    N = n.valid.numel()
+    out = torch.zeros(len(segsum.DECIDE_GROUP_ROWS) * G + N, dtype=torch.int64,
+                      device=n.valid.device)
+    bad_ids = segsum.new_bad_ids(n.valid.device)
+    entry = segsum._decide_entry()
+    args = (*[getattr(p, f).data_ptr() for f, _ in segsum._POD_FIELDS], p.valid.numel(),
+            *[getattr(n, f).data_ptr() for f, _ in segsum._NODE_FIELDS], N,
+            G, out.data_ptr(), bad_ids.data_ptr(), n.valid.device.index)
+
+    def launch():  # names out and bad_ids, so the closure keeps them alive
+        if entry(*args, torch.cuda.current_stream(n.valid.device).cuda_stream) != 0:
+            raise RuntimeError(f"segsum decide launch into {tuple(out.shape)}, {bad_ids} failed")
+
+    return launch
+
+
 def sweep_callables(segsum, ids, valid, ints, counts, G):
     """(kernel, wrapper, plain, library) callables of one call site: the raw
     launch, the wrapper as the decide calls it (a shared out-of-range counter,
@@ -324,7 +488,7 @@ def sweep_callables(segsum, ids, valid, ints, counts, G):
 
 
 def kernel_profiler_ms(launch, iters: int = 100):
-    """The segsum kernel's own device time per launch from torch.profiler,
+    """The segsum kernels' own device time per launch from torch.profiler,
     over ``iters`` launches; "not measured" when the profiler recorded no
     device event, which happens now and then."""
     from torch.autograd import DeviceType
@@ -335,7 +499,7 @@ def kernel_profiler_ms(launch, iters: int = 100):
             launch()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and "segsum_kernel" in e.key]
+              if e.device_type == DeviceType.CUDA and "segsum" in e.key]
     count = sum(e.count for e in events)
     if not count:
         return "not measured"
@@ -394,7 +558,7 @@ def main() -> int:
     from escalator_tpu_torch.core.arrays import to_device
     from escalator_tpu_torch.interop import decision_to_numpy
     from escalator_tpu_torch.k8s import types as k8s
-    from escalator_tpu_torch.ops import _build, kernel, segsum
+    from escalator_tpu_torch.ops import _build, segsum
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -429,6 +593,29 @@ def main() -> int:
     max_err = max(max_err, check_kernel_vs_plain(segsum, ids, valid, ones, {}, 7))
     log(phase="kernel_check", layout="ids_out_of_range", raised=True, bit_equal=True)
 
+    # the decide's fused sweeps: edge layouts at the main path's shape, ragged
+    # lane counts, and every input off the allocator's 16-byte alignment (a
+    # slice one element into a larger tensor), which the kernel reads lane by
+    # lane. Their own random stream keeps the world below as it was before
+    # these checks existed.
+    layout_rng = np.random.default_rng([args.seed, 1])
+    for name, pods, nodes, G in decide_layouts(layout_rng):
+        for offset in (0, 1) if name in ("contiguous", "lanes_4097") else (0,):
+            p, n = sweep_tensors(pods, nodes, dev, offset)
+            max_err = max(max_err, check_decide_vs_plain(segsum, p, n, G))
+            unaligned = {"unaligned_inputs": "read by the kernel"} if offset else {}
+            log(phase="kernel_check", entry="decide_sweeps", layout=name, pod_lanes=len(pods["valid"]),
+                node_lanes=len(nodes["valid"]), groups=G, offset_elements=offset, **unaligned,
+                bit_equal=True)
+    for name, pods, nodes, G in decide_bad_layouts(layout_rng):
+        p, n = sweep_tensors(pods, nodes, dev)
+        try:
+            segsum.decide_sweeps(p, n, G, n.valid.numel())
+        except ValueError:
+            log(phase="kernel_check", entry="decide_sweeps", layout=name, raised=True)
+        else:
+            raise AssertionError(f"decide_sweeps let {name} through")
+
     # ---- 4. main path
     t0 = time.perf_counter()
     world = build_world(rng, k8s, sem)
@@ -454,10 +641,10 @@ def main() -> int:
     main_launches = segsum.LAUNCHES
     for (name, _, _, ordered, _), launches in zip(outs, per_tick_launches, strict=True):
         want_ordered, decides = expect[name]
-        if ordered != want_ordered or launches < 2 * decides:
+        if ordered != want_ordered or launches != decides:
             raise AssertionError(
                 f"tick {name}: ordered={ordered} with {launches} kernel launches; "
-                f"expected ordered={want_ordered} and >= {2 * decides}")
+                f"expected ordered={want_ordered} and {decides}")
     log(phase="main_path", launches=main_launches, per_tick=dict(
         zip([n for n, _ in ticks], per_tick_launches, strict=True)))
 
@@ -510,11 +697,12 @@ def main() -> int:
             **{f"{k}_ms_median": statistics.median(r[k] for r in rows) * 1e3 for k in rows[0]})
 
     cluster = to_device(PaddedPacker().pack(ticks[0][1]), dev)
-    P, N = cluster.pods.valid.numel(), cluster.nodes.valid.numel()
+    p, n = cluster.pods, cluster.nodes
+    P, N = p.valid.numel(), n.valid.numel()
     sites = {
-        "pods": (*kernel.pod_sweep_inputs(cluster.pods), GROUPS),
-        "nodes": (*kernel.node_sweep_inputs(cluster.nodes), GROUPS),
-        "node_pods": (*kernel.node_pods_sweep_inputs(cluster.pods, cluster.nodes.group, N), N),
+        "pods": (*segsum.pod_sweep_inputs(p), GROUPS),
+        "nodes": (*segsum.node_sweep_inputs(n), GROUPS),
+        "node_pods": (*segsum.node_pods_sweep_inputs(p, n.group, N), N),
     }
     log(phase="main_path_shapes", pod_lanes=P, node_lanes=N, groups=GROUPS)
     site_rows, calls = {}, {}
@@ -531,6 +719,26 @@ def main() -> int:
             wrapper_launch_ms=device_ms(wrapper_fn), plain_launch_ms=device_ms(plain_fn),
             library_launch_ms=device_ms(library_fn))
 
+    # the decide's one launch: the three sites' sums from the raw arrays
+    max_err = max(max_err, check_decide_vs_plain(segsum, p, n, GROUPS))
+    decide_fn = decide_launcher(segsum, p, n, GROUPS)
+    bad_ids = segsum.new_bad_ids(dev)
+    decide_wrapper = lambda: segsum.decide_sweeps(p, n, GROUPS, N, bad_ids=bad_ids)  # noqa: E731
+    decide_plain = lambda: segsum.decide_sweeps_plain(p, n, GROUPS, N)  # noqa: E731
+    bound_ms, bound_by, nbytes = decide_bound(p, n, GROUPS)
+    decide_row = dict(
+        site="decide_sweeps", pod_lanes=P, node_lanes=N, valid_pods=int(p.valid.sum()),
+        valid_nodes=int(n.valid.sum()), segments=GROUPS, bytes=nbytes, bound_ms=bound_ms,
+        bound_by=bound_by, ms=graph_ms(decide_fn), plain_ms=graph_ms(decide_plain),
+        # the one PyTorch call per site that computes its sums, summed
+        library_ms=sum(r["library_ms"] for r in site_rows.values()),
+        sites_ms=sum(r["ms"] for r in site_rows.values()),
+        # the fixed cost of any one launch: PyTorch's own spin kernel, told
+        # to spin for no cycles, timed the same way
+        empty_launch_ms=graph_ms(lambda: torch.cuda._sleep(0)),
+        launch_ms=device_ms(decide_fn), wrapper_launch_ms=device_ms(decide_wrapper),
+        plain_launch_ms=device_ms(decide_plain))
+
     # ---- 6. profiles, after every timing, so that none of those runs with
     # the profiler's instrumentation attached
     for name, inputs in ticks:
@@ -540,10 +748,10 @@ def main() -> int:
     for name, (kernel_fn, *_) in calls.items():
         site_rows[name]["kernel_profiler_ms"] = kernel_profiler_ms(kernel_fn)
         log(kernel_timing=site_rows[name])
+    decide_row["kernel_profiler_ms"] = kernel_profiler_ms(decide_fn)
+    log(kernel_timing=decide_row)
 
-    # one decide launches the kernel once per call site: its numbers are sums
-    total = {k: sum(r[k] for r in site_rows.values())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    # one decide launches the kernel once: the fused launch's numbers
     log(kernels=[{
         "name": "segsum",
         "route": "cuda",
@@ -551,11 +759,11 @@ def main() -> int:
         "replaces": "escalator_tpu/ops/pallas_kernel.py:113",
         "launches": main_launches,
         "max_abs_err": max_err,
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in site_rows.values()) else "operations",
-        "library_ms": total["library_ms"],
+        "ms": decide_row["ms"],
+        "plain_ms": decide_row["plain_ms"],
+        "bound_ms": decide_row["bound_ms"],
+        "bound_by": decide_row["bound_by"],
+        "library_ms": decide_row["library_ms"],
     }])
     print(card, flush=True)
     log(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 The port of ``escalator_tpu/ops/kernel.py``'s ``decide`` (:750). One call:
 
 - sums the pod requests per group, and the pods per node, and the node
-  capacities and partition counts per group, through the CUDA segment-sum
-  kernel (:mod:`escalator_tpu_torch.ops.segsum`; its plain version on the CPU);
+  capacities and partition counts per group, in one launch of the CUDA
+  segment-sum kernel (:func:`escalator_tpu_torch.ops.segsum.decide_sweeps`;
+  its plain version on the CPU);
 - runs the float64 decision math over the ``[G]`` groups, bit-matching
   calcPercentUsage (reference: pkg/controller/util.go:58-81), calcScaleUpDelta
   (util.go:13-46) and the status exits of scaleNodeGroup (controller.go:192-397);
@@ -15,7 +16,7 @@ The port of ``escalator_tpu/ops/kernel.py``'s ``decide`` (:750). One call:
 Every op runs eagerly, one rounding per op, in the reference's order. Literals
 that meet a float64 tensor are float64 tensors themselves, so nothing promotes
 to float32, and float-to-int casts are clamped first. The decide reads one
-number back from the device, at its end: the segment-sum launches' count of
+number back from the device, at its end: the segment-sum launch's count of
 out-of-range ids (:func:`escalator_tpu_torch.ops.segsum.check_bad_ids`).
 """
 
@@ -78,48 +79,12 @@ def _const(value, dtype, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=like.device)
 
 
-def node_pods_sweep_inputs(p: PodArrays, node_group: torch.Tensor, N: int):
-    """``(ids, valid, int_columns, count_columns)`` of the per-node pod count:
-    each valid pod on a node of its own group counts once for that node (the
-    same-group filter of the reference's node-info map, controller.go:259)."""
-    on_node = p.valid & (p.node >= 0)
-    pod_node = torch.where(on_node, p.node, torch.zeros_like(p.node))
-    counted = on_node & (p.group == node_group[torch.clamp(p.node, 0, N - 1).to(I64)])
-    return pod_node, counted, {}, {"node_pods_remaining": counted}
-
-
-def pod_sweep_inputs(p: PodArrays):
-    """``(ids, valid, int_columns, count_columns)`` of the per-group pod sums
-    (replaces pkg/k8s/util.go:27-38). The kernel drops invalid lanes, so the
-    request columns go in unmasked."""
-    pgroup = torch.where(p.valid, p.group, torch.zeros_like(p.group))
-    return (pgroup, p.valid, {"cpu_req": p.cpu_milli, "mem_req": p.mem_bytes},
-            {"num_pods": p.valid})
-
-
-def node_sweep_inputs(n: NodeArrays):
-    """``(ids, valid, int_columns, count_columns)`` of the per-group node sums:
-    capacity over untainted nodes and the partition counts (replaces
-    pkg/k8s/util.go:41-51 and filterNodes counting)."""
-    ngroup, untainted_sel, tainted_sel = node_selection_masks(
-        n.valid, n.group, n.tainted, n.cordoned)
-    zero = _const(0, I64, n.cpu_milli)
-    return (
-        ngroup,
-        n.valid,
-        {"cpu_cap": torch.where(untainted_sel, n.cpu_milli, zero),
-         "mem_cap": torch.where(untainted_sel, n.mem_bytes, zero)},
-        {"num_nodes": n.valid, "num_untainted": untainted_sel,
-         "num_tainted": tainted_sel, "num_cordoned": n.valid & n.cordoned},
-    )
-
-
 def node_pods_remaining_sweep(p: PodArrays, node_group: torch.Tensor, N: int,
                               bad_ids=None):
     """Per-node count of same-group pods. Returns int64 ``[N]``. ``bad_ids``
     as in :func:`escalator_tpu_torch.ops.segsum.fused_segment_sums`."""
     return segsum.fused_segment_sums(
-        *node_pods_sweep_inputs(p, node_group, N), num_segments=N, bad_ids=bad_ids,
+        *segsum.node_pods_sweep_inputs(p, node_group, N), num_segments=N, bad_ids=bad_ids,
     )["node_pods_remaining"]
 
 
@@ -128,7 +93,8 @@ def aggregate_pods(p: PodArrays, node_group: torch.Tensor, G: int, N: int,
     """Per-group pod-request sums + per-node pod counts — the O(P) sweeps.
     Returns (cpu_req[G] i64, mem_req[G] i64, num_pods[G] i64,
     node_pods_remaining[N] i64)."""
-    sums = segsum.fused_segment_sums(*pod_sweep_inputs(p), num_segments=G, bad_ids=bad_ids)
+    sums = segsum.fused_segment_sums(*segsum.pod_sweep_inputs(p), num_segments=G,
+                                     bad_ids=bad_ids)
     return (sums["cpu_req"], sums["mem_req"], sums["num_pods"],
             node_pods_remaining_sweep(p, node_group, N, bad_ids))
 
@@ -137,7 +103,8 @@ def aggregate_nodes(n: NodeArrays, G: int, bad_ids=None):
     """Per-group node capacity sums and partition counts — the O(N) sweep.
     Returns (cpu_cap, mem_cap, num_nodes, num_untainted, num_tainted,
     num_cordoned), each int64 [G]."""
-    sums = segsum.fused_segment_sums(*node_sweep_inputs(n), num_segments=G, bad_ids=bad_ids)
+    sums = segsum.fused_segment_sums(*segsum.node_sweep_inputs(n), num_segments=G,
+                                     bad_ids=bad_ids)
     return (sums["cpu_cap"], sums["mem_cap"], sums["num_nodes"],
             sums["num_untainted"], sums["num_tainted"], sums["num_cordoned"])
 
@@ -364,16 +331,19 @@ def decide(cluster: ClusterArrays, now_sec: int, with_orders: bool = True) -> De
     N = n.valid.shape[0]
 
     # ---- aggregation (replaces pkg/k8s/util.go:27-51 per-group loops) ----
-    # the three sweeps share one out-of-range counter, read back at the end
+    # aggregate_pods + aggregate_nodes in one launch; its out-of-range
+    # counter is read back at the end
     bad_ids = segsum.new_bad_ids(n.valid.device)
-    cpu_req, mem_req, num_pods64, node_pods_remaining64 = aggregate_pods(
-        p, n.group, G, N, bad_ids)
-    cpu_cap, mem_cap, nn64, nu64, nt64, nc64 = aggregate_nodes(n, G, bad_ids)
-    num_pods = num_pods64.to(I32)
-    num_nodes = nn64.to(I32)
+    sums = segsum.decide_sweeps(p, n, G, N, bad_ids=bad_ids)
+    cpu_req, mem_req = sums["cpu_req"], sums["mem_req"]
+    cpu_cap, mem_cap = sums["cpu_cap"], sums["mem_cap"]
+    node_pods_remaining64 = sums["node_pods_remaining"]
+    nu64, nt64 = sums["num_untainted"], sums["num_tainted"]
+    num_pods = sums["num_pods"].to(I32)
+    num_nodes = sums["num_nodes"].to(I32)
     num_untainted = nu64.to(I32)
     num_tainted = nt64.to(I32)
-    num_cordoned = nc64.to(I32)
+    num_cordoned = sums["num_cordoned"].to(I32)
 
     ngroup, untainted_sel, tainted_sel = node_selection_masks(
         n.valid, n.group, n.tainted, n.cordoned

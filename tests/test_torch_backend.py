@@ -26,6 +26,7 @@ from escalator_tpu_torch.core import arrays as tarrays  # noqa: E402
 from tests import test_backend_differential as differential  # noqa: E402
 from tests import test_controller as controller_scenarios  # noqa: E402
 from tests.test_kernel_parity import NOW, random_group  # noqa: E402
+from tests.test_torch_segsum import one_torch_thread  # noqa: E402,F401 (autouse)
 
 
 def _groups(seed, count=12):

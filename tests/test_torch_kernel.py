@@ -29,6 +29,7 @@ from escalator_tpu.testsupport.builders import (  # noqa: E402
 from escalator_tpu_torch import interop  # noqa: E402
 from escalator_tpu_torch.ops import kernel as tkernel  # noqa: E402
 from tests.test_kernel_parity import NOW, random_group  # noqa: E402
+from tests.test_torch_segsum import one_torch_thread  # noqa: E402,F401 (autouse)
 
 PADS = dict(pad_pods=1024, pad_nodes=1024, pad_groups=32)
 FIELDS = [f for f in jkernel.DecisionArrays.__dataclass_fields__]
@@ -205,3 +206,51 @@ def test_decide_on_sparse_interleaved_layout():
     want = jkernel.decide_jit(cluster_np, np.int64(NOW))
     got = tkernel.decide(interop.cluster_from_numpy(cluster_np, device="cpu"), NOW)
     _assert_same(want, interop.decision_to_numpy(got), "interleaved")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_decide_sweeps_match_jax_aggregates(case, impl):
+    """The decide's one fused sweep (its plain version on the CPU), and the
+    port's per-site ``aggregate_pods`` + ``aggregate_nodes``, against the JAX
+    package's, bit for bit."""
+    from escalator_tpu_torch.ops import segsum
+    from tests.test_torch_segsum import _jax_aggregates
+
+    cluster_np = pack_cluster(CASES[case](), **PADS)
+    c = interop.cluster_from_numpy(cluster_np, device="cpu")
+    G, N = PADS["pad_groups"], PADS["pad_nodes"]
+    got = segsum.decide_sweeps(c.pods, c.nodes, G, N)
+    # the per-site counterparts of the JAX functions, on the generic entry
+    per_site = (*tkernel.aggregate_pods(c.pods, c.nodes.group, G, N),
+                *tkernel.aggregate_nodes(c.nodes, G))
+    want = _jax_aggregates(impl)(vars(cluster_np.pods), vars(cluster_np.nodes), G, N)
+    assert tuple(got) == segsum.DECIDE_SUMS
+    for name, site, w in zip(segsum.DECIDE_SUMS, per_site, want, strict=True):
+        w = np.asarray(w).tobytes()
+        assert got[name].numpy().tobytes() == w, f"{case}/{impl}: {name}"
+        assert site.numpy().tobytes() == w, f"{case}/{impl}: per-site {name}"
+
+
+def test_decide_runs_one_fused_sweep(monkeypatch):
+    """decide sums through decide_sweeps once, with a shared counter, and
+    never through the per-site aggregate functions."""
+    from escalator_tpu_torch.ops import segsum
+
+    calls = []
+    fused = segsum.decide_sweeps
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs.get("bad_ids") is not None)
+        return fused(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("decide called a per-site aggregate")
+
+    monkeypatch.setattr(segsum, "decide_sweeps", counting)
+    for name in ("aggregate_pods", "aggregate_nodes", "node_pods_remaining_sweep"):
+        monkeypatch.setattr(tkernel, name, refuse)
+    c = interop.cluster_from_numpy(pack_cluster(CASES["random0"](), **PADS), device="cpu")
+    for with_orders in (True, False):
+        tkernel.decide(c, NOW, with_orders=with_orders)
+    assert calls == [True, True]

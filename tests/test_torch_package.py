@@ -77,14 +77,19 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert '"ok"' not in proc.stdout
 
 
-def test_chip_smoke_bound_counts_what_the_sweep_must_read():
-    """The smoke's bound reads the valid flag of every lane but the id and the
-    columns of the valid lanes only, each distinct tensor once."""
+def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_chip_smoke_bound_counts_what_the_sweep_must_read():
+    """The smoke's bound reads the valid flag of every lane but the id and the
+    columns of the valid lanes only, each distinct tensor once."""
+    chip_smoke = _chip_smoke()
     valid = torch.tensor([1, 0, 0, 1, 0, 0, 1, 0], dtype=torch.bool)
     ids = torch.zeros(8, dtype=torch.int32)
     ints = {"v": torch.ones(8, dtype=torch.int64)}
@@ -92,5 +97,27 @@ def test_chip_smoke_bound_counts_what_the_sweep_must_read():
     bound_ms, bound_by, nbytes = chip_smoke.sweep_bound(ids, valid, ints, counts, 4)
     # 8 valid flags + 3 valid lanes x (4 B id + 8 B int + 1 B count) + 4 x 3 x 8 B out
     assert nbytes == 8 + 3 * 13 + 96
+    assert bound_by == "bytes"
+    assert bound_ms == nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
+
+
+def test_chip_smoke_decide_bound_counts_what_the_fused_launch_must_read():
+    """The fused launch's bound reads every pod and node lane's valid flag, a
+    valid pod's group, node, cpu and mem, a valid node's group, two flags,
+    cpu and mem, and writes the [9, G] and [N] sums once."""
+    chip_smoke = _chip_smoke()
+    from escalator_tpu_torch.core.arrays import NodeArrays, PodArrays
+
+    pv = torch.tensor([1, 1, 0, 1, 0, 0], dtype=torch.bool)
+    nv = torch.tensor([1, 0, 1, 0], dtype=torch.bool)
+    i32, i64, b = (lambda k, dt=dt: torch.zeros(k, dtype=dt)
+                   for dt in (torch.int32, torch.int64, torch.bool))
+    p = PodArrays(group=i32(6), cpu_milli=i64(6), mem_bytes=i64(6), node=i32(6), valid=pv)
+    n = NodeArrays(group=i32(4), cpu_milli=i64(4), mem_bytes=i64(4), creation_ns=i64(4),
+                   tainted=b(4), cordoned=b(4), no_delete=b(4), taint_time_sec=i64(4), valid=nv)
+    bound_ms, bound_by, nbytes = chip_smoke.decide_bound(p, n, 3)
+    # 6 + 4 valid flags, 3 pods x (4 + 4 + 8 + 8) B, 2 nodes x (4 + 1 + 1 + 8 + 8) B,
+    # (9 x 3 + 4) x 8 B out
+    assert nbytes == 10 + 3 * 24 + 2 * 22 + (9 * 3 + 4) * 8
     assert bound_by == "bytes"
     assert bound_ms == nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3

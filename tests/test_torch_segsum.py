@@ -8,6 +8,8 @@ column); the CUDA kernel is held to that plain version on the card by
 sums are integer.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -17,6 +19,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from escalator_tpu.ops import pallas_kernel as pk  # noqa: E402
 from escalator_tpu_torch.ops import segsum  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a port test file runs: the suite runs
+    files side by side in worker processes, and torch's default of a thread
+    per core would crowd the other files' timing gates. Test files of the
+    port import this fixture."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _sorted_ids(rng, P, G):
@@ -213,3 +227,129 @@ def test_shared_counter_on_the_cpu():
     with pytest.raises(TypeError, match="bad_ids"):
         segsum.fused_segment_sums(ids, valid, ints, counts, 4,
                                   bad_ids=torch.zeros(1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------- decide_sweeps
+
+import jax  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from escalator_tpu.core import arrays as jarrays  # noqa: E402
+from escalator_tpu.ops import kernel as jkernel  # noqa: E402
+
+#: the edge layouts of chip_smoke.decide_layouts, at a small size
+SMALL = dict(P=1024, N=1024, G=32, lane_counts=(1, 3, 33, 257))
+DECIDE_LAYOUTS = [name for name, *_ in chip_smoke.decide_layouts(np.random.default_rng(0), **SMALL)]
+
+
+def _decide_layout(name):
+    for layout in chip_smoke.decide_layouts(np.random.default_rng(0), **SMALL):
+        if layout[0] == name:
+            return layout[1:]
+    raise KeyError(name)
+
+
+def _jax_fields(pods, nodes):
+    """The numpy layout as the fields of the JAX package's PodArrays /
+    NodeArrays (node fields the sweeps do not read are zero)."""
+    N = len(nodes["valid"])
+    extra = dict(creation_ns=np.zeros(N, np.int64), no_delete=np.zeros(N, bool),
+                 taint_time_sec=np.zeros(N, np.int64))
+    return dict(pods), {**nodes, **extra}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_aggregates(impl):
+    """JAX ``aggregate_pods`` + ``aggregate_nodes`` on PodArrays / NodeArrays
+    fields: the ten sums in ``segsum.DECIDE_SUMS`` order."""
+    def sums(pod_fields, node_fields, G, N):
+        pods, nodes = jarrays.PodArrays(**pod_fields), jarrays.NodeArrays(**node_fields)
+        return (*jkernel.aggregate_pods(pods, nodes.group, G, N, impl),
+                *jkernel.aggregate_nodes(nodes, G, impl))
+    return jax.jit(sums, static_argnums=(2, 3))
+
+
+def _assert_decide_sweeps_match_jax(p, n, jp, jn, G, impl):
+    N = n.valid.numel()
+    before = segsum.LAUNCHES
+    got = segsum.decide_sweeps(p, n, G, N)
+    assert segsum.LAUNCHES == before  # CPU tensors never reach the kernel
+    plain = segsum.decide_sweeps_plain(p, n, G, N)
+    want = _jax_aggregates(impl)(jp, jn, G, N)
+    assert tuple(got) == tuple(plain) == segsum.DECIDE_SUMS
+    for name, w in zip(segsum.DECIDE_SUMS, want, strict=True):
+        w = np.asarray(w)
+        assert got[name].numpy().tobytes() == w.tobytes(), name
+        assert plain[name].numpy().tobytes() == w.tobytes(), name
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("layout", DECIDE_LAYOUTS)
+def test_decide_sweeps_match_jax_aggregates_on_edge_layouts(layout, impl):
+    """pods off a node, on another group's node, on an invalid node lane,
+    garbage ids in padding lanes, values >= 2^48 and negative, every node
+    tainted and/or cordoned, no valid lane, G = N = 1, uncounted pods on a
+    node >= N (dropped), ragged lane counts: the one sweep on the CPU is
+    bit-equal to the JAX package's two."""
+    pods, nodes, G = _decide_layout(layout)
+    p, n = chip_smoke.sweep_tensors(pods, nodes, "cpu")
+    _assert_decide_sweeps_match_jax(p, n, *_jax_fields(pods, nodes), G, impl)
+
+
+@pytest.mark.parametrize("layout", ["pod_group_ge_G", "node_group_ge_G",
+                                    "counted_pod_on_node_ge_N"])
+def test_decide_sweeps_raise_on_ids_out_of_range(layout):
+    """A valid pod or node with group >= G, or a counted pod on a node >= N,
+    raises; with a counter passed it raises before touching it."""
+    layouts = {name: rest for name, *rest in chip_smoke.decide_bad_layouts(np.random.default_rng(0))}
+    pods, nodes, G = layouts[layout]
+    p, n = chip_smoke.sweep_tensors(pods, nodes, "cpu")
+    counter = segsum.new_bad_ids("cpu")
+    with pytest.raises(ValueError, match="outside"):
+        segsum.decide_sweeps(p, n, G, n.valid.numel(), bad_ids=counter)
+    assert int(counter) == 0
+
+
+def _small_decide_inputs():
+    pods, nodes = chip_smoke.sweep_arrays(np.random.default_rng(4), 64, 32, 4)
+    return (*chip_smoke.sweep_tensors(pods, nodes, "cpu"), 4, 32)
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("pod_group_int64", TypeError), ("node_cpu_int32", TypeError), ("tainted_uint8", TypeError),
+    ("pod_shape", TypeError), ("N_not_node_lanes", TypeError), ("N_zero", ValueError),
+    ("negative_G", ValueError), ("non_contiguous", ValueError), ("counter_int32", TypeError),
+])
+def test_decide_sweeps_reject_bad_input(bad, error):
+    p, n, G, N = _small_decide_inputs()
+    kwargs = {}
+    if bad == "pod_group_int64":
+        p.group = p.group.to(torch.int64)
+    elif bad == "node_cpu_int32":
+        n.cpu_milli = n.cpu_milli.to(torch.int32)
+    elif bad == "tainted_uint8":
+        n.tainted = n.tainted.to(torch.uint8)
+    elif bad == "pod_shape":
+        p.node = p.node[:-1]
+    elif bad == "N_not_node_lanes":
+        N += 1
+    elif bad == "N_zero":
+        N = 0
+    elif bad == "negative_G":
+        G = -1
+    elif bad == "non_contiguous":
+        p.cpu_milli = torch.stack([p.cpu_milli, p.cpu_milli], 1)[:, 0]
+    elif bad == "counter_int32":
+        kwargs["bad_ids"] = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(error):
+        segsum.decide_sweeps(p, n, G, N, **kwargs)
+
+
+def test_decide_sweeps_refuse_devices_without_an_implementation():
+    p, n, G, N = _small_decide_inputs()
+    for section in (p, n):
+        for name, value in vars(section).items():
+            if value is not None:
+                setattr(section, name, value.to("meta"))
+    with pytest.raises(ValueError, match="no segment-sum implementation"):
+        segsum.decide_sweeps(p, n, G, N)
